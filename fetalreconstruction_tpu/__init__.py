@@ -1,7 +1,7 @@
-"""fetalreconstruction_tpu — TPU-native motion-compensated super-resolution
-fetal MRI reconstruction (SVR + PVR).
+"""fetalreconstruction_tpu — motion-compensated super-resolution fetal MRI
+reconstruction (SVR + PVR) in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 bkainz/fetalReconstruction: slice-/patch-to-volume rigid registration,
 Gaussian/sinc PSF forward simulation and transpose accumulation, EM robust
 statistics, bias correction, and edge-preserving super-resolution — designed

@@ -18,7 +18,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pvr-reconstruct",
-        description="TPU-native patch-to-volume reconstruction (PVR)")
+        description="Patch-to-volume reconstruction (PVR)")
     p.add_argument("-o", "--output", default="PVRReconstruction.nii.gz")
     p.add_argument("-i", "--input", nargs="+", required=True)
     p.add_argument("-m", "--mask", default=None)
@@ -81,6 +81,8 @@ def main(argv=None) -> int:
     if args.useCPU:
         import jax
         jax.config.update("jax_platforms", "cpu")
+    from ..utils.compile_cache import configure_compile_cache
+    configure_compile_cache()
     from ..pipeline.pvr import PVRConfig, run_pvr
     from ..io.nifti import write_nifti
 
@@ -125,7 +127,7 @@ def main(argv=None) -> int:
     with _LogRedirect(args.log_prefix, not args.no_log):
         result = run_pvr(cfg, mesh=mesh)
     write_nifti(result.reconstructed, cfg.output)
-    print(f"wrote {cfg.output}")
+    print(f"wrote {cfg.output} ({len(result.slice_weights)} patches)")
     result.stats.print()
     perf_name = (args.log_prefix
                  + time.strftime("performance_%Y-%m-%d-%H-%M-%S.txt"))

@@ -39,6 +39,8 @@ def main(argv=None) -> int:
     p.add_argument("--nbins_y", type=int, default=0)
     args = p.parse_args(argv)
 
+    from ..utils.compile_cache import configure_compile_cache
+    configure_compile_cache()
     import jax.numpy as jnp
     from ..core.image import Image
     from ..io.nifti import read_nifti, write_nifti

@@ -16,7 +16,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="svr-reconstruct",
-        description="TPU-native slice-to-volume reconstruction (SVR)")
+        description="Slice-to-volume reconstruction (SVR)")
     p.add_argument("-o", "--output", default="3TReconstruction.nii.gz",
                    help="Name for the reconstructed volume")
     p.add_argument("-i", "--input", nargs="+", required=True,
@@ -84,7 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tfolder", default="",
                    help="Folder with per-slice transformation%%i.dof files")
     p.add_argument("--engine", choices=["fast", "exact"], default="fast",
-                   help="PSF engine: fast (TPU conv+trilinear) or exact "
+                   help="PSF engine: fast (conv+trilinear) or exact "
                         "(reference-faithful offsets)")
     p.add_argument("--checkpoint", default="",
                    help="Directory for per-outer-iteration checkpoints")
@@ -179,6 +179,8 @@ def main(argv=None) -> int:
         import jax
         jax.distributed.initialize()
 
+    from ..utils.compile_cache import configure_compile_cache
+    configure_compile_cache()
     from ..pipeline.config import SVRConfig
     from ..pipeline.svr import run_svr
     from ..io.nifti import write_nifti
@@ -240,7 +242,7 @@ def main(argv=None) -> int:
         result = run_svr(cfg, mesh=mesh,
                          mesh_mode=args.mesh_mode)
     write_nifti(result.reconstructed, cfg.output)
-    print(f"wrote {cfg.output}")
+    print(f"wrote {cfg.output} ({len(result.slice_weights)} slices)")
     if result.bspline_reconstructed is not None:
         write_nifti(result.bspline_reconstructed,
                     cfg.output + ".bspline.nii.gz")

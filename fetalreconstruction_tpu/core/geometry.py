@@ -1,6 +1,6 @@
 """Image geometry: attributes, image<->world matrices, rigid transforms.
 
-TPU-native reimplementation of the IRTK geometry conventions used by the
+JAX reimplementation of the IRTK geometry conventions used by the
 reference pipeline (bkainz/fetalReconstruction).  Conventions replicated:
 
 - Image-to-world matrix (reference: IRTKSimple2/image++/src/irtkBaseImage.cc:79):
@@ -224,10 +224,12 @@ def rigid_matrix_jax(params):
 
 def invert_rigid_jax(m):
     """Batched jnp rigid inverse: (..., 4, 4) -> (..., 4, 4)."""
+    import jax
     import jax.numpy as jnp
     m = jnp.asarray(m)
     rt = jnp.swapaxes(m[..., :3, :3], -1, -2)
-    t = -jnp.einsum('...ij,...j->...i', rt, m[..., :3, 3])
+    t = -jnp.einsum('...ij,...j->...i', rt, m[..., :3, 3],
+                   precision=jax.lax.Precision.HIGHEST)
     top = jnp.concatenate([rt, t[..., :, None]], axis=-1)
     bottom = jnp.broadcast_to(
         jnp.array([0.0, 0.0, 0.0, 1.0], dtype=m.dtype), m[..., :1, :4].shape)
@@ -236,5 +238,7 @@ def invert_rigid_jax(m):
 
 def transform_points_jax(m, pts):
     """Apply (..., 4, 4) affine to (..., 3) points (broadcasting)."""
+    import jax
     import jax.numpy as jnp
-    return jnp.einsum('...ij,...j->...i', m[..., :3, :3], pts) + m[..., :3, 3]
+    return jnp.einsum('...ij,...j->...i', m[..., :3, :3], pts,
+                      precision=jax.lax.Precision.HIGHEST) + m[..., :3, 3]

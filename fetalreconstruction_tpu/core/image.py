@@ -2,7 +2,7 @@
 
 Replaces the reference's irtkGenericImage<T> (IRTKSimple2/image++) for the
 host/orchestration layer.  Array data is stored in [z, y, x] order (x is the
-fastest axis, matching both IRTK memory order and the TPU lane dimension);
+fastest axis, matching IRTK memory order);
 coordinate vectors in the API are (x, y, z) like the reference.
 
 On-device state uses plain jnp arrays; this class is for pipeline setup,

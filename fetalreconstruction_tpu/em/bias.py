@@ -77,7 +77,7 @@ def normalise_bias(geom, offsets, sume, slices_valid, bias, scale,
     """Remove average slice bias from the volume (NormaliseBias).
 
     axis_name: slice-sharded mesh axis — the scatter output is a partial
-    volume per shard, combined by psum (the ICI all-reduce replacing the
+    volume per shard, combined by psum (the all-reduce replacing the
     reference's peer-memcpy reduce, reconstruction_cuda2.cu:2225-2239).
     Returns the corrected volume.
     """

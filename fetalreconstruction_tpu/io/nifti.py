@@ -69,7 +69,7 @@ def read_stacks(paths, nthreads: int = 0):
     Reads + inflates all files in parallel via native/csrc/niftiz.cc
     (fr_nz_read_many), then parses each in Python; falls back to
     sequential read_nifti when the native tier is unavailable.  This is
-    the TPU-framework analog of the reference's stack-loading loop
+    the analog of the reference's stack-loading loop
     (reconstruction.cc:272-318 over niftilib).
     """
     from .. import native

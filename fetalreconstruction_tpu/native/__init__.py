@@ -1,7 +1,7 @@
 """Native C++ tier: build-on-demand loader for the csrc/ modules.
 
 The reference ships its host runtime in C/C++ (niftilib I/O, SLIC in C,
-TBB orchestration); the TPU compute path here is JAX/XLA, and the host-side
+TBB orchestration); the device compute path here is JAX/XLA, and the host-side
 native tier is csrc/{slic.cc, niftiz.cc}, compiled on first use with g++
 into one shared library and loaded via ctypes.  Everything has a pure
 NumPy fallback — the native tier is an accelerator, never a requirement.

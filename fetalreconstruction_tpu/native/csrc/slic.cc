@@ -1,6 +1,6 @@
 // SLIC superpixel segmentation — native C++ tier.
 //
-// TPU-native rebuild of the reference's CPU SLIC path
+// Rebuild of the reference's CPU SLIC path
 // (source/reconstructionGPU2/runSLIC_2D.c:340-483 and
 // runStackSLIC.cpp segmentSLIC): the reference runs SLIC on the host in
 // C before patch extraction; here the same capability is a small C++

@@ -7,7 +7,7 @@ irtkGaussianBlurringWithPadding.cc (convolve only over non-padding values,
 renormalize by the in-mask kernel mass; padded voxels stay padded).
 
 Implemented as explicit shift-and-accumulate (static unroll over kernel
-taps) — on TPU these fuse into a handful of VPU passes and avoid any
+taps) — XLA fuses these into a few elementwise kernels, with no
 convolution-layout overhead for the small kernels used here.
 """
 from __future__ import annotations

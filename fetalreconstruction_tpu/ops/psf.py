@@ -1,6 +1,6 @@
 """PSF projection engine: slice<->volume transfer through the sinc-Gauss PSF.
 
-TPU-native reimplementation of the reference's three hot CUDA kernels
+JAX reimplementation of the reference's three hot CUDA kernels
 (reconstruction_cuda2.cu):
 - gaussianReconstructionKernel3D_tex (:176)  -> psf_scatter / gaussian_recon
 - simulateSlicesKernel3D_tex       (:298)  -> psf_gather  / simulate_slices
@@ -34,9 +34,10 @@ We instead keep all terms of the (statically pruned) support; contributions
 are identical to within the epsilon the reference itself discards.
 
 Everything is structured as a static scan over the K^3 integer offset list:
-per offset one fused VPU pass over all (N, H, W) slice pixels plus one
-XLA gather (simulate) or deterministic scatter-add (reconstruct/SR).
-No atomics — XLA scatter-add is deterministic on TPU.
+per offset one fused elementwise pass over all (N, H, W) slice pixels plus
+one XLA gather (simulate) or scatter-add (reconstruct/SR).  On a GPU the
+scatter-add sums with atomics in no fixed order, so results agree with a
+sequential sum to float rounding, not bitwise.
 """
 from __future__ import annotations
 
@@ -162,7 +163,8 @@ def prune_offsets(offsets: np.ndarray, a3: np.ndarray, slice_dim: np.ndarray,
 def _offset_weight(geom: SliceGeom, off: jax.Array) -> jax.Array:
     """PSF weight (N,H,W) for one integer offset (3,)."""
     rel = off.astype(jnp.float32)[None, None, None, :] - geom.frac
-    mm = jnp.einsum("nij,nhwj->nhwi", geom.a3, rel) * \
+    mm = jnp.einsum("nij,nhwj->nhwi", geom.a3, rel,
+                    precision=jax.lax.Precision.HIGHEST) * \
         geom.slice_dim[:, None, None, :]
     return calc_psf(mm, geom.slice_dim[:, None, None, :])
 

@@ -1,10 +1,10 @@
-"""Fast TPU PSF engine: per-stack separable convolution + trilinear sampling.
+"""Fast PSF engine: per-stack separable convolution + trilinear sampling.
 
 The exact engine (ops/psf.py) anchors the PSF at integer volume voxels
-around round(F p) — a faithful transcription of the reference CUDA kernels,
-but its transpose requires ~K^3 x n_pixels scatter-adds (6e9 for the
-canonical run), which XLA TPU executes at only ~1e8 updates/s.  This module
-is the TPU-native reformulation used for production runs:
+around round(F p) — a faithful transcription of the reference CUDA
+kernels, but its transpose needs ~K^3 x n_pixels scatter-adds (6e9 for
+the canonical run).  This module is the reformulation used for
+production runs:
 
     sim[p]  = (K_s * (vol . mask))(F_s p) / (K_s * mask)(F_s p)
     addon   = mask . (K_s * splat(payload / sume))
@@ -25,15 +25,13 @@ tests):
    a few degrees rotate the smooth PSF kernel negligibly.
 
 K_s is decomposed into a sum of separable rank-1 triads (two-stage SVD,
-energy cutoff), so each convolution is a handful of shift-multiply-add
-passes on the VPU; the only scatter left is the 8-corner trilinear splat
-(~28M updates for the canonical run) with addon/cmap sharing one index set
-in a single stacked-f32 scatter.
+energy cutoff), so each convolution is a handful of shifted
+multiply-add passes; the only scatter left is the 8-corner trilinear
+splat (~28M updates for the canonical run) with addon/cmap sharing one
+index set in a single two-column scatter.
 """
 from __future__ import annotations
 
-import os
-from functools import partial
 from typing import List, NamedTuple, Sequence, Tuple
 
 import jax
@@ -55,22 +53,14 @@ class FastGeom(NamedTuple):
            in sid; all per-STACK work is volume-space and replicated)
     den:   (N, H, W)   f32   cached (conv(mask))(xp) — mask AND xp are
            constant between geometry rebuilds, so the simulate
-           denominator is gathered ONCE here instead of per call (round-4
-           chip profile: the fused 16-row num+den gather cost 118 ms per
-           simulate; caching den halves the per-call gather to the 8
-           num rows, and replaces the round-3 (8, S*R) cmask table —
-           ~0.5 GB at canonical shape — with an (N, H, W) per-slice
-           array that also shards over the slice axis)
-    plan:  optional pallas_scatter.ScatterPlan — the sorted-stream
-           schedule for the Pallas TPU scatter kernel (None = XLA
-           scatter).  Rebuilt with the geometry; all-array pytree.
+           denominator is gathered ONCE here instead of per call; an
+           (N, H, W) per-slice array that shards over the slice axis
     """
     xp: jax.Array
     valid: jax.Array
     sume: jax.Array
     sid: jax.Array
     den: jax.Array
-    plan: object = None
 
 
 def stack_kernel(a3: np.ndarray, slice_dim: np.ndarray,
@@ -162,21 +152,6 @@ def _conv1d_axis_adj(arr, taps: np.ndarray, axis: int):
     return out
 
 
-_MXU_CONV = os.environ.get("FETALRECON_MXU_CONV", "1") != "0"
-
-
-def _band_matrix(taps: np.ndarray, n: int, adjoint: bool = False):
-    """(n, n) banded matrix form of the zero-padded 1-D tap pass:
-    out = arr @ B applied along an axis of length n.
-
-    Built by running the tap pass over the identity, so the even-size
-    centre convention (tap (k-1)//2 is centre) is inherited exactly from
-    _conv1d_axis/_conv1d_axis_adj; the taps are compile-time constants,
-    so XLA folds the shifted-eye sum into a literal."""
-    fn = _conv1d_axis_adj if adjoint else _conv1d_axis
-    return fn(jnp.eye(n, dtype=jnp.float32), np.asarray(taps), 1)
-
-
 def conv_separable(vol, terms, flip: bool = False):
     """Apply sum of separable triads to a (..., z, y, x) volume.
 
@@ -190,24 +165,8 @@ def conv_separable(vol, terms, flip: bool = False):
     (k-1)//2 is treated as centre, so flipping also shifts by one — both
     passes must agree on the convention, which flip=True provides.
 
-    Default path: each 1-D pass is a dot against an (n, n) banded matrix
-    — the MXU runs the whole pass as one matmul (measured v5e, canonical
-    4-stack shape: 27.7 ms vs 80.9 ms for the VPU shift-add chain, rel
-    err ~4e-7 at HIGHEST precision).  FETALRECON_MXU_CONV=0 restores the
-    shift-add path."""
-    if _MXU_CONV:
-        hi = jax.lax.Precision.HIGHEST
-        zs, ys, xs = vol.shape[-3:]
-        out = jnp.zeros_like(vol)
-        for kzv, kyv, kxv, c in terms:
-            t = jnp.einsum("...x,xw->...w", vol,
-                           _band_matrix(kxv, xs, flip), precision=hi)
-            t = jnp.einsum("...yx,yw->...wx", t,
-                           _band_matrix(kyv, ys, flip), precision=hi)
-            t = jnp.einsum("...zyx,zw->...wyx", t,
-                           _band_matrix(kzv, zs, flip), precision=hi)
-            out = out + c * t
-        return out
+    Each 1-D pass is a chain of shifted multiply-adds (one per non-zero
+    tap), which XLA fuses into a few elementwise kernels."""
     out = jnp.zeros_like(vol)
     nd = vol.ndim
     for kzv, kyv, kxv, c in terms:
@@ -232,11 +191,8 @@ def make_shingle(vols):
     (xs+1) + x+1, so floor index -1 is valid), corner c of volume p's
     2x2x2 window starting at that voxel; zero outside the volume.
 
-    Corner-major keeps the minor dim large (zero (8,128) tiling padding
-    — the former (R, 8P) layout lane-padded 8-16x) and one axis-1
-    jnp.take fetches all 8P corner values per sample (round-3
-    measurement: 91 ms vs 129 ms for the row-gather at the canonical
-    simulate shape, with the table build cost dropping into the noise).
+    Corner-major keeps the minor dimension long, and one axis-1 jnp.take
+    fetches all 8P corner values per sample.
     """
     cols = []
     for vol in vols:
@@ -315,70 +271,47 @@ def trilinear_gather(vol, xp):
     return out
 
 
-def _splat2_blocked(xp, pay_a, pay_b, vol_shape, sid=None, n_stacks=1):
-    """Parity-blocked width-16 scatter core; returns the blocked
-    accumulator (n_stacks, 8, Bz, By, Bx, 2, 2, 2, 2).
+def splat2(xp, pay_a, pay_b, vol_shape, sid=None, n_stacks=1):
+    """Adjoint of shingle_gather for two payloads, per stack.
 
-    The volume is viewed, per corner parity s in {0,1}^3, as 2x2x2 blocks
-    of the s-shifted volume V_s[j] = vol[j - s].  A pixel with floor index
-    q (per axis) has q + s_q even for its own parity s_q = q & 1, so its
-    full 2x2x2 corner window lands INSIDE block (q + s_q)/2 of V_{s_q}.
-    All 8 trilinear corners x 2 payloads therefore form ONE 16-wide
-    scatter row per pixel; the XLA TPU scatter cost is ~per-row (measured
-    v5e: width-16 112 ns/row vs width-2 85 ns/row), so this runs ~8x
-    fewer rows than the naive 8-corner scatter (measured: 0.46s vs 1.73s
-    for 3.5M pixels into 160^3).
+    Every pixel adds weight * payload to each of its 8 trilinear corner
+    voxels; corners outside the volume are dropped.  One scatter-add of
+    (value_a, value_b) rows into a dense (n_stacks * zs * ys * xs, 2)
+    accumulator covers all stacks (row offset sid * zs * ys * xs), so the
+    pixel axis shards over a mesh.  The summation order of the scatter is
+    unspecified, so results agree with a sequential sum to float rounding.
 
-    sid: per-slice stack index -> rows offset by sid * 8*Bz*By*Bx, so all
-    stacks accumulate in ONE scatter call (same total row count as the
-    round-1 per-stack loop, but shardable over slices).
+    Returns (n_stacks, 2, zs, ys, xs) f32.
     """
     zs, ys, xs = vol_shape
-    Bz, By, Bx = (zs + 3) // 2, (ys + 3) // 2, (xs + 3) // 2
+    nvox = zs * ys * xs
     ui, vi, wi, wts = _corner_weights(xp)
-    inb = ((ui >= -1) & (ui < xs) & (vi >= -1) & (vi < ys)
-           & (wi >= -1) & (wi < zs))
-    sx, sy, sz = ui & 1, vi & 1, wi & 1
-    bx, by, bz = (ui + sx) >> 1, (vi + sy) >> 1, (wi + sz) >> 1
-    par = (sz << 2) | (sy << 1) | sx
-    row = ((par * Bz + bz) * By + by) * Bx + bx
+    base = 0
     if sid is not None:
-        nd = row.ndim - 1
-        row = row + sid.astype(jnp.int32).reshape(
-            sid.shape + (1,) * nd) * (8 * Bz * By * Bx)
-    row = jnp.where(inb, row, -1).reshape(-1)
-    # wts is ordered (cw, cv, cu); payload axis last -> (..., 8, 2)
+        nd = ui.ndim - 1
+        base = sid.astype(jnp.int32).reshape(sid.shape + (1,) * nd) * nvox
+    rows = []
+    for cw in (0, 1):
+        for cv in (0, 1):
+            for cu in (0, 1):
+                zc, yc, xc = wi + cw, vi + cv, ui + cu
+                inb = ((zc >= 0) & (zc < zs) & (yc >= 0) & (yc < ys)
+                       & (xc >= 0) & (xc < xs))
+                lin = base + (zc * ys + yc) * xs + xc
+                rows.append(jnp.where(inb, lin, n_stacks * nvox))
+    rows = jnp.stack(rows, axis=-1).reshape(-1)
+    # wts is ordered (cw, cv, cu) like rows; payload axis last -> (..., 8, 2)
     upd = jnp.stack([wts * pay_a[..., None], wts * pay_b[..., None]],
-                    axis=-1).reshape(-1, 16)
-    acc = jnp.zeros((n_stacks * 8 * Bz * By * Bx, 16), jnp.float32)
-    acc = acc.at[row].add(upd, mode="drop")
-    return acc.reshape(n_stacks, 8, Bz, By, Bx, 2, 2, 2, 2)
-
-
-def _unblock2(acc, vol_shape):
-    """Un-block one stack's parity accumulator (8,Bz,By,Bx,2,2,2,2) into
-    two dense volumes: dense_s[2b+c] = blocks[b, c]; vol[i] += dense_s[i+s].
-    Rows with floor outside [-1, dim-1] were dropped; boundary corners
-    fall into halo positions of the dense views and are sliced away —
-    exactly matching per-corner-masked scatter-add semantics."""
-    zs, ys, xs = vol_shape
-    Bz, By, Bx = acc.shape[1:4]
-    out_a = jnp.zeros(vol_shape, jnp.float32)
-    out_b = jnp.zeros(vol_shape, jnp.float32)
-    for p in range(8):
-        szp, syp, sxp = (p >> 2) & 1, (p >> 1) & 1, p & 1
-        dense = acc[p].transpose(0, 3, 1, 4, 2, 5, 6).reshape(
-            2 * Bz, 2 * By, 2 * Bx, 2)
-        sl = dense[szp:szp + zs, syp:syp + ys, sxp:sxp + xs]
-        out_a = out_a + sl[..., 0]
-        out_b = out_b + sl[..., 1]
-    return out_a, out_b
+                    axis=-1).reshape(-1, 2)
+    acc = jnp.zeros((n_stacks * nvox, 2), jnp.float32)
+    acc = acc.at[rows].add(upd, mode="drop")
+    return jnp.moveaxis(acc.reshape(n_stacks, zs, ys, xs, 2), -1, 1)
 
 
 def trilinear_splat2(xp, pay_a, pay_b, vol_shape):
     """Adjoint of trilinear_gather (shingle_gather) for TWO payloads."""
-    acc = _splat2_blocked(xp, pay_a, pay_b, vol_shape)
-    return _unblock2(acc[0], vol_shape)
+    out = splat2(xp, pay_a, pay_b, vol_shape)
+    return out[0, 0], out[0, 1]
 
 
 # ---------------------------------------------------------------------------
@@ -392,24 +325,9 @@ class FastPSF:
 
     def __init__(self, stack_a3: np.ndarray, stack_dims: np.ndarray,
                  stack_slice_ranges: Sequence[Tuple[int, int]],
-                 support: int, tol: float = 1e-3, pallas=None):
+                 support: int, tol: float = 1e-3):
         self.support = support
         self.ranges = list(stack_slice_ranges)
-        # Pallas TPU scatter kernel: DEFAULT ON for TPU backends since
-        # round 3 — the update-major (16, L) stream layout fixed the
-        # compile-time OOM of the first-cut kernel, and the production
-        # bench measured 1.28 it/s vs 1.01 it/s for the XLA scatter path
-        # on the canonical shape (BASELINE.md 2026-08-21; kernel core
-        # 285 ms vs 422 ms XLA scatter).  FETALRECON_PALLAS=0 forces the
-        # XLA path; CPU always uses XLA (the kernel would run in the slow
-        # interpreter).
-        if pallas is None:
-            # TPU only: the Mosaic kernel (pltpu.PrefetchScalarGridSpec,
-            # interpret=False) cannot lower on CUDA/ROCm; GPU and CPU
-            # backends fall back to the XLA width-16 row scatter
-            pallas = (os.environ.get("FETALRECON_PALLAS", "1") != "0"
-                      and jax.default_backend() == "tpu")
-        self.pallas = bool(pallas)
         self.terms = []
         for a3, dims in zip(stack_a3, stack_dims):
             k = stack_kernel(np.asarray(a3, np.float64),
@@ -478,13 +396,7 @@ def make_fast_geom(fast: FastPSF, fwd, valid, vol_shape, mask=None,
                           for t in fast.terms], axis=1)], axis=0)
     sume, den = shingle_gather(tab, xp, vol_shape, 2, sid=sid)
     sume = jnp.where(valid & (sume > 0.5), sume, 0.0)
-    plan = None
-    if getattr(fast, "pallas", False):
-        from .pallas_scatter import build_scatter_plan
-        plan = build_scatter_plan.__wrapped__(
-            xp, sid, tuple(vol_shape), len(fast.terms))
-    return FastGeom(xp=xp, valid=valid, sume=sume, sid=sid, den=den,
-                    plan=plan)
+    return FastGeom(xp=xp, valid=valid, sume=sume, sid=sid, den=den)
 
 
 def fast_simulate(fast: FastPSF, geom: FastGeom, vol, mask, vol_shape):
@@ -493,8 +405,7 @@ def fast_simulate(fast: FastPSF, geom: FastGeom, vol, mask, vol_shape):
     The denominator (conv(mask))(xp) comes pre-GATHERED from the
     geometry cache (geom.den: mask and xp are constant between geometry
     rebuilds), so the per-call work is only the conv(vol*mask) numerator
-    table + one 8-row gather — half the round-3 fused 16-row gather
-    (chip profile 2026-08-21: gather was 118 ms of simulate's 187 ms)."""
+    table and one 8-row gather."""
     vm = vol * mask
     num_tab = jnp.concatenate(
         [make_shingle([conv_separable(vm, t)]) for t in fast.terms],
@@ -517,29 +428,18 @@ def fast_scatter2(fast: FastPSF, geom: FastGeom, pay_a, pay_b, mask,
 
     out_k = mask . sum_stacks K_s * splat(payload_k / sume).
     Payloads must be zero at invalid pixels.  ONE stack-offset scatter
-    covers all stacks (same row count as a per-stack loop, shardable);
-    the per-stack un-block + adjoint convolution runs on dense volumes.
+    covers all stacks (shardable over slices); the per-stack adjoint
+    convolution then runs on the dense volumes.
     """
     inv = jnp.where(geom.sume > 0, 1.0 / jnp.where(geom.sume > 0,
                                                    geom.sume, 1.0), 0.0)
     a = pay_a * inv
     b = pay_b * inv
-    S = len(fast.terms)
-    if geom.plan is not None:
-        # Pallas path: accumulate (val-major) + un-block kernel — the
-        # dense per-stack volumes come straight out of the kernels (the
-        # XLA transpose-chain un-block measured 295 ms vs 55 ms here)
-        from .pallas_scatter import pallas_splat2_packed, pallas_unblock
-        vm = pallas_splat2_packed(geom.plan, a, b, tuple(vol_shape), S)
-        dense = pallas_unblock(vm, tuple(vol_shape), S)  # (S,2,zs,ys,xs)
-        per_stack = [(dense[s, 0], dense[s, 1]) for s in range(S)]
-    else:
-        blocked = _splat2_blocked(geom.xp, a, b, vol_shape, sid=geom.sid,
-                                  n_stacks=S)
-        per_stack = [_unblock2(blocked[s], vol_shape) for s in range(S)]
+    dense = splat2(geom.xp, a, b, vol_shape, sid=geom.sid,
+                   n_stacks=len(fast.terms))
     out = jnp.zeros((2,) + tuple(vol_shape), jnp.float32)
-    for (sa, sb), terms in zip(per_stack, fast.terms):
+    for s, terms in enumerate(fast.terms):
         # batch both payload fields through one adjoint conv pass
-        out = out + conv_separable(jnp.stack([sa, sb]), terms, flip=True)
+        out = out + conv_separable(dense[s], terms, flip=True)
     m = (mask != 0).astype(jnp.float32)
     return out[0] * m, out[1] * m

@@ -1,10 +1,9 @@
 """2-D mesh execution: slice-DP x volume z-slab sharding composed.
 
-Round-3 chip profile (BASELINE.md): ~47% of the inner SR/EM iteration is
-VOLUME-space work (scatter accumulate, un-block, adjoint convs,
-regularizer, simulate convs) that the 1-D slice-DP mode replicates on
-every chip — an Amdahl ceiling of ~68% scaling efficiency at n=2, below
-the >=70% BASELINE target.  This module shards BOTH:
+A large share of the inner SR/EM iteration is VOLUME-space work
+(scatter accumulate, adjoint convs, regularizer, simulate convs) that the
+1-D slice-DP mode replicates on every device, which caps its scaling
+efficiency.  This module shards BOTH:
 
     mesh = Mesh(devices.reshape(S, V), ("slices", "vol_z"))
 
@@ -25,7 +24,7 @@ the >=70% BASELINE target.  This module shards BOTH:
 - EM scalar reductions psum over `slices` (every vol_z column computes
   identical statistics).
 
-This is the TPU-native composition the reference's multi-GPU runtime
+This is a composition the reference's multi-GPU runtime
 never had (it replicated the volume per GPU and reduced to device 0,
 reconstruction_cuda2.cu:2225-2239); equality with the single-device fast
 engine is asserted on 4x2 and 2x4 CPU meshes in tests/test_mesh2d.py.
@@ -70,14 +69,8 @@ def grid_shape(n_devices: int):
 
 
 def _smap(fn, mesh, in_specs, out_specs):
-    try:
-        from jax import shard_map
-        kw = {"check_vma": False}
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
-        kw = {"check_rep": False}
-    return shard_map(fn, mesh=mesh, in_specs=in_specs,
-                     out_specs=out_specs, **kw)
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 # PartitionSpecs: per-slice arrays shard over AXIS_S; volume slabs over

@@ -1,6 +1,6 @@
-"""Multi-chip SPMD execution: slices sharded over a device mesh.
+"""Multi-device SPMD execution: slices sharded over a device mesh.
 
-TPU-native replacement for the reference's multi-GPU runtime
+Replacement for the reference's multi-GPU runtime
 (GPUWorker.{h,cpp} + the peer-memcpy/thrust reduce-broadcast layer,
 reconstruction_cuda2.cu:1408-1460, 2225-2239, 2368-2373 / SURVEY.md §2.4):
 
@@ -9,8 +9,8 @@ reconstruction_cuda2.cu:1408-1460, 2225-2239, 2368-2373 / SURVEY.md §2.4):
   peer cudaMemcpy + thrust::plus, regularizes on device 0 and broadcasts;
 - here the slice batch is sharded over the `slices` mesh axis with
   shard_map, the volume is replicated, scatter outputs and EM scalar
-  partials are combined with jax.lax.psum over ICI, and regularization
-  runs replicated (identical on every chip — no broadcast needed).
+  partials are combined with jax.lax.psum, and regularization runs
+  replicated (identical on every device — no broadcast needed).
 
 Both PSF engines are supported: the exact offset-scan engine (ops/psf.py)
 and the production fast conv+trilinear engine (ops/psf_fast.py, whose
@@ -90,18 +90,8 @@ def place_global(mesh: Mesh, spec, a):
 def geom_spec(ctx: svr_core.SVRContext):
     """PartitionSpec pytree for the engine's geometry structure."""
     if ctx.fast is not None:
-        plan_spec = None
-        if getattr(ctx.fast, "pallas", False):
-            # per-shard scatter plans: every array is local to its shard's
-            # slice range, so the (padded) slot axis shards — axis 0 for
-            # the 1-D schedules, axis 1 for the transposed (8, L) weights
-            from ..ops.pallas_scatter import ScatterPlan
-            plan_spec = ScatterPlan(pperm=P(AXIS), loc=P(AXIS),
-                                    wtsT=P(None, AXIS), blk=P(AXIS),
-                                    first=P(AXIS), last=P(AXIS),
-                                    cnt8=P(AXIS))
         return psf_fast.FastGeom(xp=P(AXIS), valid=P(AXIS), sume=P(AXIS),
-                                 sid=P(AXIS), den=P(AXIS), plan=plan_spec)
+                                 sid=P(AXIS), den=P(AXIS))
     return psf_ops.SliceGeom(centre=P(AXIS), frac=P(AXIS), a3=P(AXIS),
                              slice_dim=P(AXIS), valid=P(AXIS))
 
@@ -114,21 +104,15 @@ SIM_SPEC = SimState(sim=P(AXIS), simw=P(AXIS), inside=P(AXIS),
 
 
 def _shard_map(fn, mesh, in_specs, out_specs):
-    try:
-        from jax import shard_map
-        kw = {"check_vma": False}  # jax >= 0.7 API
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-        kw = {"check_rep": False}
-    return shard_map(fn, mesh=mesh, in_specs=in_specs,
-                     out_specs=out_specs, **kw)
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 def sharded_inner_iteration(ctx: svr_core.SVRContext, mesh: Mesh,
                             do_bias: bool = False, do_scale: bool = True,
                             do_normalise_bias: bool = False,
                             donate: bool = True):
-    """Build the jitted multi-chip fused inner SR/EM iteration — the
+    """Build the jitted multi-device fused inner SR/EM iteration — the
     shard_map form of svr_core.inner_iteration (axis_name=AXIS inserts
     the psum collectives).
 
@@ -177,7 +161,7 @@ def sharded_em_sr_iteration(ctx: svr_core.SVRContext, mesh: Mesh):
 
 
 def sharded_gaussian_reconstruction(ctx: svr_core.SVRContext, mesh: Mesh):
-    """Multi-chip initial reconstruction: local PSF scatter + psum.
+    """Multi-device initial reconstruction: local PSF scatter + psum.
 
     Returns f(slices, valid, geom, sume, bias, scale, mask_flat)
     -> (recon, vol_weights, voxel_count)."""
@@ -197,7 +181,7 @@ def sharded_gaussian_reconstruction(ctx: svr_core.SVRContext, mesh: Mesh):
 
 def sharded_simulate(ctx: svr_core.SVRContext, mesh: Mesh):
     """Forward projection under the mesh (purely local: the volume is
-    replicated, every chip gathers its own slices)."""
+    replicated, every device gathers its own slices)."""
     body = partial(svr_core.simulate.__wrapped__, ctx)
     sm = _shard_map(
         body, mesh,
@@ -232,7 +216,7 @@ def sharded_register_slices(reg_cfg, mesh: Mesh, recon_dx: float,
                             ctx: Optional[svr_core.SVRContext] = None):
     """Slice-to-volume registration under the mesh: the #1 hot loop
     (registerMultipleSlicesToVolume, reconstruction_cuda2.cu:4001-4147)
-    sharded over slices — each chip optimizes its own slice range against
+    sharded over slices — each device optimizes its own slice range against
     the replicated volume; no collectives are needed (per-slice problems
     are independent; the reference's multi-GPU path partitions exactly the
     same way via dev_slice_range_offset).

@@ -2,10 +2,10 @@
 
 SURVEY §5's large-area mode (the reference's analog of context-parallel
 halo exchange).  The slice-DP mode (parallel/sharded.py) replicates the
-volume per chip — fine for SVR-scale grids, but the LARGE-AREA PVR config
-(0.75 mm, 8 stacks, 64x64 patches) blows the replicated-memory budget not
-through the volume itself (~67 MB) but through the per-stack conv tables
-(~4.3 GB) and the parity-blocked scatter accumulator (~8.8 GB).  This
+volume per device — fine for SVR-scale grids, but the LARGE-AREA PVR config
+(0.75 mm, 8 stacks, 64x64 patches) strains the replicated-memory budget
+not through the volume itself (~67 MB) but through the per-stack conv
+tables and scatter accumulators (one volume per stack and payload).  This
 module shards all volume-space state — recon, mask, addon/cmap, per-stack
 conv(mask)/conv(1) tables, scatter accumulators — into z-slabs, with
 slices/patches REPLICATED:
@@ -13,8 +13,8 @@ slices/patches REPLICATED:
 - trilinear gather/scatter need NO halo: every trilinear corner voxel
   lands wholly in one slab, so gathers are ownership-masked partial sums
   combined with jax.lax.psum, and scatters are ownership-masked local
-  adds (the deterministic analog of the reference's atomicAdd across its
-  per-GPU volume copies, reconstruction_cuda2.cu:262-295);
+  adds (the analog of the reference's atomicAdd across its per-GPU
+  volume copies, reconstruction_cuda2.cu:262-295);
 - the separable PSF convolutions exchange a kernel-radius z-halo via
   jax.lax.ppermute (zero-filled at the global edges, matching the
   engines' zero-padded convolution);
@@ -144,9 +144,8 @@ def vs_conv_separable(slab, terms, axis_name: str, flip: bool = False):
     z pass sees neighbour values (zeros at the global edges)."""
     h = _conv_terms_radius(terms)
     ext = _halo_exchange_z(slab, h, axis_name)
-    # conv_separable operates on the last 3 axes and dispatches to the
-    # MXU banded-matmul path (the z matrix covers the halo-extended
-    # extent; zero-padded semantics match the replicated operator)
+    # conv_separable operates on the last 3 axes; its zero padding at the
+    # halo-extended ends matches the replicated operator
     out = pf.conv_separable(ext, terms, flip=flip)
     if h:
         out = out[..., h:-h, :, :] if out.ndim == 4 else out[h:-h]
@@ -228,20 +227,16 @@ def vs_fast_simulate(fast: pf.FastPSF, geom: VSGeom, vol_slab, mask_slab,
 
 def vs_fast_scatter2(fast: pf.FastPSF, geom: VSGeom, pay_a, pay_b,
                      mask_slab, vol_shape, axis_name: str):
-    """Transpose accumulation into z-slabs via the parity-blocked
-    WIDTH-16 row scatter (one row per pixel — the layout the replicated
-    engine uses; the round-3 width-2 8-rows-per-pixel form was the slow
-    formulation, ~85 ns/row x 8 rows), then the per-stack adjoint
-    convolutions with halo exchange.
+    """Transpose accumulation into z-slabs via the dense 8-corner splat
+    (psf_fast.splat2), then the per-stack adjoint convolutions with halo
+    exchange.
 
     Slab assignment is by the pixel's FLOOR voxel: the whole 2x2x2
     trilinear window spans local z [wl, wl+1], so the slab scatters into
-    a LOCAL parity-blocked volume of height lz+1 (one top halo plane)
-    and the halo plane is ppermute'd forward and added to the next
-    slab's first plane.  No global parity alignment is needed — parity
-    blocks are defined in slab-local coordinates.  Equality with the
-    replicated engine (incl. masks extending to the volume borders) is
-    asserted in tests/test_volume_sharded.py."""
+    a LOCAL volume of height lz+1 (one top halo plane) and the halo plane
+    is ppermute'd forward and added to the next slab's first plane.
+    Equality with the replicated engine (incl. masks extending to the
+    volume borders) is asserted in tests/test_volume_sharded.py."""
     zs, ys, xs = vol_shape
     lz = mask_slab.shape[0]
     s_ = len(fast.terms)
@@ -257,10 +252,8 @@ def vs_fast_scatter2(fast: pf.FastPSF, geom: VSGeom, pay_a, pay_b,
     a = jnp.where(own, pay_a * inv, 0.0)
     b = jnp.where(own, pay_b * inv, 0.0)
     xp_loc = geom.xp - jnp.asarray([0.0, 0.0, 1.0]) * z0.astype(jnp.float32)
-    blocked = pf._splat2_blocked(xp_loc, a, b, (lz + 1, ys, xs),
-                                 sid=geom.sid, n_stacks=s_)
-    acc = jnp.stack([jnp.stack(pf._unblock2(blocked[s], (lz + 1, ys, xs)))
-                     for s in range(s_)])        # (S, 2, lz+1, ys, xs)
+    acc = pf.splat2(xp_loc, a, b, (lz + 1, ys, xs), sid=geom.sid,
+                    n_stacks=s_)                 # (S, 2, lz+1, ys, xs)
     # top halo plane -> next slab's first plane (device 0 receives zeros)
     halo = acc[:, :, lz]
     recv = jax.lax.ppermute(halo, axis_name,
@@ -347,14 +340,8 @@ GEOM_SPEC = VSGeom(xp=P(), valid=P(), sume=P(), sid=P(), den=P())
 
 
 def _smap(fn, mesh, in_specs, out_specs):
-    try:
-        from jax import shard_map
-        kw = {"check_vma": False}
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
-        kw = {"check_rep": False}
-    return shard_map(fn, mesh=mesh, in_specs=in_specs,
-                     out_specs=out_specs, **kw)
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 SLAB = P(AXIS_V)

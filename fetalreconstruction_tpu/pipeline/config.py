@@ -67,8 +67,8 @@ class SVRConfig:
     bspline: bool = False         # also produce the alternative B-spline
                                   # reconstruction (irtkBSplineReconstruction)
 
-    # engine knobs (TPU-side, no reference analog)
-    engine: str = "fast"          # "fast" (TPU conv+trilinear) | "exact"
+    # engine knobs (no reference analog)
+    engine: str = "fast"          # "fast" (conv+trilinear) | "exact"
     max_psf_support: int = 12
     # slice-to-volume registration pyramid: default = the reference's
     # CPU GuessParameterSliceToVolume preset (3 levels, 20 iterations;

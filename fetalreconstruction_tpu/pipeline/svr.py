@@ -248,7 +248,7 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     "slices" axis) every device stage — registration, geometry, gaussian
     reconstruction and the fused EM/SR iteration — runs through the
     explicit shard_map program in parallel/sharded.py (slices sharded,
-    volume replicated, psum collectives; the TPU-native form of the
+    volume replicated, psum collectives; the SPMD form of the
     reference's multi-GPU reduce-to-root + broadcast,
     reconstruction_cuda2.cu:2225-2239).  The slice count is padded to a
     mesh multiple with invalid slices.  The host-side package-to-volume
@@ -545,7 +545,7 @@ def run_svr(cfg: SVRConfig, stacks: Optional[List[Image]] = None,
     # stage dispatch: with a mesh every device stage runs the explicit
     # shard_map program (parallel/sharded.py for slice-DP,
     # parallel/volume_sharded.py for z-slab volume sharding) — the same
-    # programs the multi-chip dryrun and the CPU-mesh equality tests
+    # programs the multi-device dryrun and the CPU-mesh equality tests
     # validate; without one, the plain jitted svr_core graph
     if mesh is not None and mesh_mode == "grid":
         from ..parallel import mesh2d as g2

@@ -33,7 +33,7 @@ class SVRContext:
     """Static (compile-time) reconstruction configuration.
 
     engine selection: fast=None -> the exact (reference-faithful) offset
-    engine (ops/psf.py); fast=FastPSF -> the TPU conv+trilinear engine
+    engine (ops/psf.py); fast=FastPSF -> the conv+trilinear engine
     (ops/psf_fast.py), compared against the exact engine in
     tests/test_psf_fast.py.
     """
@@ -72,7 +72,8 @@ def slice_forward_matrices(recon_w2i, transforms, slice_i2w):
     return jnp.einsum("ij,njk,nkl->nil",
                       jnp.asarray(recon_w2i, jnp.float32),
                       jnp.asarray(transforms, jnp.float32),
-                      jnp.asarray(slice_i2w, jnp.float32))
+                      jnp.asarray(slice_i2w, jnp.float32),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 @partial(jax.jit, static_argnames=("ctx",))
@@ -315,7 +316,7 @@ def inner_iteration(ctx: SVRContext, geom, sume, slices, valid,
     scatter outputs become per-shard partial volumes combined by psum,
     and the EM scalar reductions psum their partials; everything
     volume-space (regularization, volume bias) runs replicated.  This is
-    the TPU-native form of the reference's reduce-to-root + broadcast
+    the SPMD form of the reference's reduce-to-root + broadcast
     (reconstruction_cuda2.cu:2225-2239, 2368-2373)."""
     gated = valid & (sume > 0)
     if do_bias:

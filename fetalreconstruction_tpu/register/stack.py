@@ -39,7 +39,7 @@ def stack_registrations(stacks: List[Image], template_index: int,
     init_transforms, if given, are also in the stored convention.
 
     All non-template stacks register as ONE lock-step batched problem
-    (register_volumes_batched) — the TPU analog of the reference's
+    (register_volumes_batched) — the analog of the reference's
     TBB-parallel ParallelStackRegistrations
     (irtkReconstructionGPU.cc:849-938).
     """

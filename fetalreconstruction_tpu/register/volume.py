@@ -164,7 +164,8 @@ def _vol_cost_body(metric, bins, tdata, sdata, tgt_i2w, src_w2i, tpad,
     gy = jnp.arange(ys, dtype=jnp.float32)
     gz = jnp.arange(zs, dtype=jnp.float32)
     t = rigid_matrix_jax(params)
-    m = jnp.einsum("ij,njk,kl->nil", src_w2i, t, tgt_i2w)
+    m = jnp.einsum("ij,njk,kl->nil", src_w2i, t, tgt_i2w,
+                   precision=jax.lax.Precision.HIGHEST)
     pts = (m[:, None, None, None, :3, 0] * gx[None, None, None, :, None]
            + m[:, None, None, None, :3, 1] * gy[None, None, :, None, None]
            + m[:, None, None, None, :3, 2] * gz[None, :, None, None, None]
@@ -204,7 +205,7 @@ def _vol_sweep_jit(metric, bins, epsilon, tdata, sdata, tgt_i2w, src_w2i,
 def _vol_cost_body_b(metric, bins, shared_src, tdata, sdata, tgt_i2w,
                      src_w2i, tpad, spad, params):
     """BATCHED pair similarity: M independent (target, source) problems in
-    lock-step (the TPU analog of ParallelStackRegistrations,
+    lock-step (the analog of ParallelStackRegistrations,
     irtkReconstructionGPU.cc:849-938 — the reference fans the problems
     over TBB threads; here they are one vmapped program).
 
@@ -220,7 +221,8 @@ def _vol_cost_body_b(metric, bins, shared_src, tdata, sdata, tgt_i2w,
     gy = jnp.arange(ys, dtype=jnp.float32)
     gz = jnp.arange(zs, dtype=jnp.float32)
     t = rigid_matrix_jax(params)
-    m = jnp.einsum("nij,njk,nkl->nil", src_w2i, t, tgt_i2w)
+    m = jnp.einsum("nij,njk,nkl->nil", src_w2i, t, tgt_i2w,
+                   precision=jax.lax.Precision.HIGHEST)
     pts = (m[:, None, None, None, :3, 0] * gx[None, None, None, :, None]
            + m[:, None, None, None, :3, 1] * gy[None, None, :, None, None]
            + m[:, None, None, None, :3, 2] * gz[None, :, None, None, None]
@@ -495,8 +497,7 @@ def register_volumes(cfg: VolRegConfig, target: Image, source: Image,
         # CLOSED OVER the level volumes — each dataset produced a
         # different HLO (data baked in as constants), so nothing ever
         # hit the persistent compile cache and stack registration
-        # recompiled its whole schedule every run (measured 595 s of a
-        # 965 s warm full-pipeline run on the chip).  With data as
+        # recompiled its whole schedule every run.  With data as
         # arguments the programs cache by SHAPE, and the host loop
         # early-exits converged step rounds.
         for sr in range(cfg.steps):

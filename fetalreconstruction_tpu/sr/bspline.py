@@ -97,9 +97,10 @@ def _eval_level(ctrl, grid_shape, spacing):
     mx = axis_matrix(xs, nx)
     my = axis_matrix(ys, ny)
     mz = axis_matrix(zs, nz)
-    out = jnp.einsum("xc,zyc->zyx", mx, ctrl)
-    out = jnp.einsum("yc,zcx->zyx", my, out)
-    out = jnp.einsum("zc,cyx->zyx", mz, out)
+    hi = jax.lax.Precision.HIGHEST
+    out = jnp.einsum("xc,zyc->zyx", mx, ctrl, precision=hi)
+    out = jnp.einsum("yc,zcx->zyx", my, out, precision=hi)
+    out = jnp.einsum("zc,cyx->zyx", mz, out, precision=hi)
     return out
 
 

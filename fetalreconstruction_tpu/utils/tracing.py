@@ -1,6 +1,6 @@
 """Profiling / tracing / numerical-guard utilities.
 
-TPU analog of the reference's observability (SURVEY.md §5): PerfStats
+Analog of the reference's observability (SURVEY.md §5): PerfStats
 covers phase wall-clock; this module adds device traces (jax.profiler,
 viewable in TensorBoard/XProf), device-memory telemetry (the reference's
 checkGPUMemory), and NaN guards (the reference has none — atomics + exit()

@@ -1,8 +1,8 @@
 """Multi-host (DCN) path: jax.distributed over 2 CPU processes.
 
-The reference is single-process multi-GPU only (GPUWorker.h); the TPU
+The reference is single-process multi-GPU only (GPUWorker.h); this
 framework scales across hosts with jax.distributed + the same shard_map
-program (SURVEY §2.4: psum rides ICI within a host and DCN across hosts).
+program (SURVEY §2.4: one psum within a host and across hosts).
 This test launches 2 local processes, each with 2 virtual CPU devices,
 builds the 4-device global `slices` mesh, and checks a sharded EM/SR
 collective result against the single-process value.
@@ -37,19 +37,12 @@ WORKER = textwrap.dedent("""
     n, h, w = 8, 6, 6
     data = np.arange(n * h * w, dtype=np.float32).reshape(n, h, w)
 
-    try:
-        from jax import shard_map
-        kw = {"check_vma": False}
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
-        kw = {"check_rep": False}
-
     def body(x):
         # per-slice partial + global psum: the cross-host collective
         return jax.lax.psum(jnp.sum(x ** 2), "slices")
 
-    f = jax.jit(shard_map(body, mesh=mesh, in_specs=P("slices"),
-                          out_specs=P(), **kw))
+    f = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=P("slices"),
+                              out_specs=P(), check_vma=False))
     # each process supplies only its ADDRESSABLE shards
     order = {d: i for i, d in enumerate(mesh.devices.flat)}
     local = [jax.device_put(data[2 * order[d]:2 * order[d] + 2], d)

@@ -1,4 +1,4 @@
-"""Fast TPU PSF engine vs the exact (reference-faithful) engine.
+"""Fast PSF engine vs the exact (reference-faithful) engine.
 
 The fast engine replaces NN-anchored offsets with continuous trilinear
 anchoring and per-stack kernels — results must agree closely with the
@@ -153,7 +153,7 @@ def test_adjoint_consistency(setup):
 
 
 def test_trilinear_splat2_matches_naive():
-    """Parity-blocked width-16 scatter == naive per-corner scatter-add."""
+    """Dense 8-corner scatter == naive per-corner scatter-add."""
     rng = np.random.default_rng(2)
     shape = (9, 11, 13)  # odd dims exercise the halo slicing
     n = 500

@@ -335,46 +335,3 @@ def test_sharded_registration_matches_single_device():
     assert np.allclose(np.asarray(mesh_sim), np.asarray(single_sim),
                        atol=1e-2)
 
-
-def test_pallas_plan_under_shard_map(setup):
-    """The Pallas scatter path (ScatterPlan specs in geom_spec) traced
-    INSIDE shard_map, interpret mode on CPU: per-shard plans are built by
-    sharded_build_geometry and consumed by the sharded gaussian
-    reconstruction; must equal the XLA-scatter sharded path.  (Round-3
-    gap: the plan specs existed but no test ever traced the kernel under
-    a mesh — a multi-chip-only breakage would have gone unseen.)"""
-    from fetalreconstruction_tpu.ops import psf_fast as pf
-    s = setup
-    batch = s["batch"]
-    ra = s["gt"].attr
-    n = s["n"]
-    support = psf_ops.reference_support(batch.dims, ra.dx, 1.0, 8)
-    sid = np.zeros((n,), np.int32)
-    sid[batch.data[:, 0, 0] != batch.data[:, 0, 0]] = 0  # single stack ok
-    fwd0 = np.asarray(ra.w2i()) @ batch.i2w[0]
-    fast_x = pf.FastPSF(np.asarray([np.linalg.inv(fwd0[:3, :3])]),
-                        batch.dims[:1], [(0, n)], support, pallas=False)
-    fast_p = pf.FastPSF(np.asarray([np.linalg.inv(fwd0[:3, :3])]),
-                        batch.dims[:1], [(0, n)], support, pallas=True)
-    mesh = sharded.make_mesh(jax.devices()[:2])
-    slices = jnp.asarray(batch.data)
-    transforms = jnp.tile(jnp.eye(4, dtype=jnp.float32), (n, 1, 1))
-    em = svr_core.init_em_state(n, s["valid"])
-    outs = {}
-    for name, fast in (("xla", fast_x), ("pallas", fast_p)):
-        ctx = svr_core.SVRContext(
-            vol_shape=ra.shape_zyx, vol_spacing=(ra.dx, ra.dy, ra.dz),
-            offsets=s["ctx"].offsets, slice_spacing_xy=(2.5, 2.5),
-            disable_bias=True, fast=fast)
-        g_fn = sharded.sharded_build_geometry(ctx, mesh)
-        geom, sume = g_fn(jnp.asarray(ra.w2i(), jnp.float32), transforms,
-                          jnp.asarray(batch.i2w, jnp.float32),
-                          jnp.asarray(batch.dims), s["valid"],
-                          s["mask_flat"], jnp.asarray(sid))
-        assert (geom.plan is not None) == (name == "pallas")
-        gauss = sharded.sharded_gaussian_reconstruction(ctx, mesh)
-        outs[name] = gauss(slices, s["valid"], geom, sume, em.bias,
-                           em.scale, s["mask_flat"])
-    a, b = np.asarray(outs["xla"][0]), np.asarray(outs["pallas"][0])
-    sc = max(np.abs(a).max(), 1.0)
-    np.testing.assert_allclose(b, a, atol=2e-3 * sc)

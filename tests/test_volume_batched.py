@@ -1,7 +1,7 @@
 """Batched 3D-3D registration: lock-step batch vs the serial path.
 
 The batched driver (register_volumes_batched) must register M pairs with
-the same quality the one-at-a-time loop achieves — it is the TPU analog
+the same quality the one-at-a-time loop achieves — it is the analog
 of ParallelStackRegistrations (irtkReconstructionGPU.cc:849-938).
 Per-pair costs are mathematically identical (batch padding is excluded
 by the padding masks); batched reductions may round differently at the

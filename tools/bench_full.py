@@ -1,5 +1,5 @@
-"""Full-pipeline SVR wall-clock on the real chip: per-phase table +
-registration throughput (the never-measured BASELINE.json target row).
+"""Full-pipeline SVR wall-clock: per-phase table + registration
+throughput on the canonical phantom.
 
 Canonical-shaped synthetic problem (the same class as the reference's
 bundled 4-stack 3T run): textured ellipsoid ground truth on a ~160^3
@@ -12,9 +12,10 @@ device time to the stage that spent it, and reports:
     analog, reconstruction.cc:1278-1296)
   - slices-registered/s over the slice-to-volume registration stage
     (registerMultipleSlicesToVolume, reconstruction_cuda2.cu:4001-4147)
-  - end-to-end minutes
+  - end-to-end minutes and PSNR against the ground truth
 
-Results are recorded in BASELINE.md.  Run:
+build_problem and psnr_vs_ground_truth are shared with bench.py,
+tools/bench_pvr.py and chip_smoke.py.  Run:
   python tools/bench_full.py [--iterations 3]
 """
 import argparse
@@ -126,6 +127,21 @@ def _compose_attr(attr, t):
     return a
 
 
+def psnr_vs_ground_truth(gt, out) -> float:
+    """PSNR (dB) of reconstruction `out` against ground truth `gt`, both
+    Images, over the voxels where the resampled ground truth is > 1."""
+    from fetalreconstruction_tpu.ops.sampling import resample_to_grid
+    import jax.numpy as jnp
+    gt_on_out = np.asarray(resample_to_grid(
+        jnp.asarray(gt.data), jnp.asarray(gt.attr.w2i(), jnp.float32),
+        out.attr.shape_zyx, jnp.asarray(out.attr.i2w(), jnp.float32),
+        interp="linear", padding=0.0))
+    m = gt_on_out > 1.0
+    diff = (np.asarray(out.data) - gt_on_out)[m]
+    return float(10 * np.log10(gt_on_out[m].max() ** 2
+                               / np.mean(diff ** 2)))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iterations", type=int, default=3)
@@ -135,13 +151,9 @@ def main():
     args = ap.parse_args()
 
     import jax
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_compile_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from fetalreconstruction_tpu.utils.compile_cache import \
+        configure_compile_cache
+    configure_compile_cache()
     print(f"backend: {jax.default_backend()}")
 
     t0 = time.perf_counter()
@@ -177,17 +189,7 @@ def main():
               f"{n_slices * len(reg) / reg_total:.1f} slices/s")
     print(f"END-TO-END: {total:.1f}s ({total / 60:.2f} min) for "
           f"{args.iterations} outer iterations, {n_slices} slices")
-    # quality signal: PSNR of the masked recon vs ground truth
-    from fetalreconstruction_tpu.ops.sampling import resample_to_grid
-    import jax.numpy as jnp
-    out = res.reconstructed
-    gt_on_out = np.asarray(resample_to_grid(
-        jnp.asarray(gt.data), jnp.asarray(gt.attr.w2i(), jnp.float32),
-        out.attr.shape_zyx, jnp.asarray(out.attr.i2w(), jnp.float32),
-        interp="linear", padding=0.0))
-    m = gt_on_out > 1.0
-    diff = (out.data - gt_on_out)[m]
-    psnr = 10 * np.log10(gt_on_out[m].max() ** 2 / np.mean(diff ** 2))
+    psnr = psnr_vs_ground_truth(gt, res.reconstructed)
     print(f"PSNR vs ground truth (masked): {psnr:.2f} dB")
 
 

@@ -1,5 +1,4 @@
-"""PVR (patch-to-volume) wall-clock on the real chip — the never-measured
-BASELINE.json configs 3-5.
+"""PVR (patch-to-volume) wall-clock — BASELINE.json configs 3-5.
 
 Two workloads on the bench_full synthetic (textured ellipsoid GT, 4
 stacks 144x144 @1.25 mm in-plane / 5 mm thick, per-slice motion):
@@ -9,12 +8,11 @@ stacks 144x144 @1.25 mm in-plane / 5 mm thick, per-slice motion):
   --superpixel   config-4 class: SLIC superpixels --spxSize 64
   --large        config-5 class: 8 stacks, 64x64 patches stride 32,
                  0.75 mm reconstruction (the large-area scaling config;
-                 single-chip here — the multi-host grid mode is
+                 one device here — the multi-host grid mode is
                  exercised separately by tests/test_multihost.py)
 
 Reports the per-phase PerfStats table, patches/s over the registration
-stage, end-to-end minutes, and PSNR vs the ground truth.  Results are
-recorded in BASELINE.md.  Run:
+stage, end-to-end minutes, and PSNR vs the ground truth.  Run:
   python tools/bench_pvr.py [--large|--superpixel] [--iterations 3]
 """
 import argparse
@@ -25,9 +23,7 @@ import time
 os.environ.setdefault("FETALRECON_SYNC_STATS", "1")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
-
-from bench_full import build_problem
+from bench_full import build_problem, psnr_vs_ground_truth
 
 
 def main():
@@ -40,13 +36,9 @@ def main():
     args = ap.parse_args()
 
     import jax
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_compile_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from fetalreconstruction_tpu.utils.compile_cache import \
+        configure_compile_cache
+    configure_compile_cache()
     print(f"backend: {jax.default_backend()}")
 
     if args.large:
@@ -89,16 +81,7 @@ def main():
           f"{args.iterations} outer iterations, {n_patches} patches "
           f"(size {patch_size} stride {patch_stride}, "
           f"{resolution} mm recon)")
-    from fetalreconstruction_tpu.ops.sampling import resample_to_grid
-    import jax.numpy as jnp
-    out = res.reconstructed
-    gt_on_out = np.asarray(resample_to_grid(
-        jnp.asarray(gt.data), jnp.asarray(gt.attr.w2i(), jnp.float32),
-        out.attr.shape_zyx, jnp.asarray(out.attr.i2w(), jnp.float32),
-        interp="linear", padding=0.0))
-    m = gt_on_out > 1.0
-    diff = (out.data - gt_on_out)[m]
-    psnr = 10 * np.log10(gt_on_out[m].max() ** 2 / np.mean(diff ** 2))
+    psnr = psnr_vs_ground_truth(gt, res.reconstructed)
     print(f"PSNR vs ground truth (masked): {psnr:.2f} dB")
 
 

@@ -7,18 +7,22 @@ distance — rotated stacks advance along world y/x, not z) to tell
 whether the scenario has headroom at all, and per-slice transform error
 stats to see whether registration moves toward or away from the truth.
 """
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo/tests")
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+sys.path.insert(0, ROOT)
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir",
-                  "/root/repo/.jax_compile_cache")
+from fetalreconstruction_tpu.utils.compile_cache import \
+    configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 import jax.numpy as jnp
 from phantom import make_ground_truth, simulate_stacks, psnr, \

@@ -7,12 +7,14 @@ Round-3 finding (diag_s2v6): the round-2 scenario (±2 mm/±3°, noise 0.5,
 2 mm in-plane / 3 mm spacing / 6 mm thick, 1.6 mm recon) has an oracle
 ceiling of 0.06 dB — PSF blur + noise dominate PSNR, so NO registration
 could ever pass the old test."""
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo/tests")
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+sys.path.insert(0, ROOT)
 import jax
 
 jax.config.update("jax_platforms", "cpu")

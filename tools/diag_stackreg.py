@@ -1,10 +1,13 @@
 """Isolate stack registration on the per-slice-motion phantom: with both
 stacks sharing identity STACK motion, stack_registrations should return
 ~identity for the non-template stack (per-slice jitter averages out)."""
+import os
 import sys
 import numpy as np
 
-sys.path.insert(0, "/root/repo/tests")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+sys.path.insert(0, ROOT)
 import jax
 
 jax.config.update("jax_platforms", "cpu")
